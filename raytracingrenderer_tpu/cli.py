@@ -1,6 +1,6 @@
 """Command-line renderer.
 
-Flag-compatible with the reference app (/root/reference/RTBase/Main.cpp:
+Flag-compatible with the reference app (RTBase/Main.cpp:
 19-66: -scene, -outputFilename, -SPP) plus the knobs the reference bakes
 in as compile-time constants (Renderer.h:18-24) or commented-out lines
 (integrator switch, Renderer.h:876-885).  Headless: renders, reports
@@ -19,8 +19,9 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytracingrenderer_tpu",
                                 description=__doc__)
-    p.add_argument("-scene", default="/root/reference/RTBase/MaterialsScene",
-                   help="scene directory containing scene.json")
+    p.add_argument("-scene", required=True,
+                   help="scene directory containing scene.json (write one "
+                        "with python -m raytracingrenderer_tpu.scene.synth)")
     p.add_argument("-outputFilename", default="GI.hdr")
     p.add_argument("-SPP", type=int, default=8192)
     p.add_argument("-integrator", default="path",
@@ -78,7 +79,9 @@ def main(argv=None) -> int:
     from .utils.log import get_logger
 
     log = get_logger("cli")
-    # multi-host bootstrap (no-op single-process; on pods the standard
+    from .utils import compile_cache
+    compile_cache.enable()
+    # multi-host bootstrap (no-op single-process; a cluster manager's
     # env vars autodetect the cluster — SURVEY §2.11 comms backend row)
     from .parallel.distributed import init_distributed
     init_distributed()

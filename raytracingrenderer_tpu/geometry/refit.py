@@ -18,9 +18,9 @@ positions — rebuild via scene.loader for large motions.
 All numpy on host: the flat DFS layout stores children at strictly
 larger indices than their parent, so a per-depth-level reverse sweep
 (levels cached per topology) is a handful of vectorized passes.  The
-Pallas kernel tables (ops/bvh_kernel.pack_tables) are re-gathered from
-bvh.lo/hi inside each traced render, so they pick up the new bounds
-with no extra work here.
+CUDA traversal kernel's node rows (ops/traverse.pack_nodes) are packed
+from bvh.lo/hi inside each traced render, so they pick up the new
+bounds with no extra work here.
 """
 from __future__ import annotations
 
@@ -82,8 +82,8 @@ def _internal_levels(right: np.ndarray) -> List[np.ndarray]:
 def refit_bvh(bvh: BVH, tris) -> BVH:
     """Recompute node bounds from the (possibly moved) triangle SoA.
 
-    Topology (right/start/count/skip, wide collapse) is unchanged; only
-    lo/hi are rewritten.  Host-side: arrays must be concrete.
+    Topology (right/start/count) is unchanged; only lo/hi are
+    rewritten.  Host-side: arrays must be concrete.
     """
     right = np.asarray(bvh.right)
     start = np.asarray(bvh.start)
@@ -118,12 +118,7 @@ def refit_bvh(bvh: BVH, tris) -> BVH:
         lo[idx] = np.minimum(lo[l], lo[r])
         hi[idx] = np.maximum(hi[r], hi[l])
     return BVH(jnp.asarray(lo), jnp.asarray(hi), bvh.right, bvh.start,
-               bvh.count, bvh.skip, leaf_max=bvh.leaf_max,
-               depth=bvh.depth, wsel=bvh.wsel, wcode=bvh.wcode,
-               waxis=bvh.waxis, tl_nodes=bvh.tl_nodes,
-               tl_start=bvh.tl_start, tl_count=bvh.tl_count,
-               tc_nodes=bvh.tc_nodes, tc_start=bvh.tc_start,
-               tc_count=bvh.tc_count)
+               bvh.count, leaf_max=bvh.leaf_max, depth=bvh.depth)
 
 
 def refit(scene: Scene) -> Scene:

@@ -1,10 +1,10 @@
 """Adaptive sampling: variance-driven sample reallocation.
 
-The reference's two-phase scheme (/root/reference/RTBase/Renderer.h:
+The reference's two-phase scheme (RTBase/Renderer.h:
 583-749) renders INIT_SAMPLES everywhere, computes per-32x32-tile
 variance, then gives each tile spp proportional to sqrt(variance share)
 — with dynamic per-tile loop counts, which XLA cannot compile.  The
-TPU-native re-design keeps the same statistic but allocates *fixed-size*
+The re-design keeps the same statistic but allocates *fixed-size*
 ray batches: each round draws `round_rays` pixel ids from the variance
 distribution (systematic resampling — static shapes, no host sync),
 traces them, and scatter-adds radiance + counts.  Variance estimates

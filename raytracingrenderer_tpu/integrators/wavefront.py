@@ -14,9 +14,8 @@ tracks the live count:
                   compiles; the XLA dispatch between jits is host code)
                -> [bounce_step at the compacted width]          (jit)
 
-The sort doubles as the traversal coherence sort (intersect dispatch is
-called `presorted`, dropping its internal sort+unsort round-trips), and
-radiance rides compacted: a ray's accumulated radiance is scattered
+The sort also groups rays by origin cell and direction octant, so
+neighbouring lanes traverse similar nodes, and radiance rides compacted: a ray's accumulated radiance is scattered
 into the image exactly once, when it dies (then zeroed, so dead rays
 retained by bucket rounding contribute nothing twice).
 
@@ -91,8 +90,7 @@ _sort_flush = functools.partial(jax.jit, donate_argnums=(1,))(
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _bounce(scene: Scene, state: dict, depth: jax.Array, key: jax.Array,
             cfg: RenderConfig) -> dict:
-    return path_mod.bounce_step(scene, state, depth, key, cfg,
-                                presorted=True)
+    return path_mod.bounce_step(scene, state, depth, key, cfg)
 
 
 @jax.jit

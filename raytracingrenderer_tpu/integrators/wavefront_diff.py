@@ -60,7 +60,7 @@ def _sort_flush_keep(scene: Scene, img, state):
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _bounce_save(scene: Scene, state, depth, key, cfg: RenderConfig):
     return path_mod.bounce_step(scene, state, depth, key, cfg,
-                                presorted=True, return_saved=True)
+                                return_saved=True)
 
 
 def _step(params, scene0: Scene, img, fstate, ndstate, depth, key,
@@ -78,7 +78,7 @@ def _step(params, scene0: Scene, img, fstate, ndstate, depth, key,
     if saved is not None:
         state = path_mod.bounce_step(scene, state,
                                      jnp.int32(depth), key, cfg,
-                                     presorted=True, saved=saved)
+                                     saved=saved)
     f2, _ = _split_state(state)
     return img, f2
 

@@ -2,10 +2,11 @@
 
 The reference is strictly single-process shared-memory (SURVEY.md §2.11);
 this module is the framework's communication-backend layer: jax.distributed
-process bootstrap, a (hosts x chips) mesh whose collectives ride ICI
-within a slice and DCN across hosts, and helpers for the two reductions
-the renderer needs — film partial sums (light tracing / adaptive stats)
-and parameter gradients (differentiable rendering).
+process bootstrap, a (hosts x devices) mesh whose collectives stay on the
+host's interconnect (NVLink between the cards of one host) and cross the
+network only between hosts, and helpers for the two reductions the
+renderer needs — film partial sums (light tracing / adaptive stats) and
+parameter gradients (differentiable rendering).
 
 Single-host runs (including the CPU test mesh) skip initialization and
 use the local-device mesh, so all call sites are topology-agnostic.
@@ -30,8 +31,9 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize multi-process JAX (no-op for single-process runs).
 
-    On TPU pods with standard env vars, bare jax.distributed.initialize()
-    autodetects everything; explicit args support manual clusters.
+    Under a cluster manager JAX recognises (SLURM, Open MPI, ...), bare
+    jax.distributed.initialize() autodetects everything; elsewhere pass
+    the coordinator address ("host:port"), process count and id.
     """
     if jax.process_count() > 1:
         return  # already initialized
@@ -47,7 +49,7 @@ def init_distributed(coordinator: Optional[str] = None,
 
 
 def pod_mesh(devices=None) -> Mesh:
-    """1-D ray mesh over every chip of every host.
+    """1-D ray mesh over every device of every host.
 
     Rays are embarrassingly parallel, so a flat axis maximizes the
     shard count; the (hosts, chips) 2-D form only matters when an op
@@ -58,7 +60,8 @@ def pod_mesh(devices=None) -> Mesh:
 
 
 def host_chip_mesh(devices=None) -> Mesh:
-    """(hosts, chips_per_host) mesh: axis 0 spans DCN, axis 1 ICI."""
+    """(hosts, devices_per_host) mesh: axis 0 crosses the network
+    between hosts, axis 1 stays within one host."""
     devs = list(devices if devices is not None else jax.devices())
     n_proc = max(jax.process_count(), 1)
     per_host = len(devs) // n_proc

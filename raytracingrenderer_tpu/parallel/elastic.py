@@ -51,12 +51,31 @@ def _spawn(scene: str, out_dir: str, worker: int, target_spp: int,
            "-checkpoint", ck, "-checkpointEvery", "1",
            "-seed", str(seed + worker)] + list(extra_args)
     env = dict(os.environ)
-    # workers share a compile cache: a respawned worker re-jits nothing
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_elastic_cache")
+    if _gpu_count():
+        # one process per card: a JAX process reserves most of the
+        # memory of every card it sees
+        env["CUDA_VISIBLE_DEVICES"] = str(worker)
+    # workers share the CLI's compile cache (utils/compile_cache.py), so
+    # a respawned worker re-jits nothing
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
                             cwd=os.path.dirname(os.path.dirname(
                                 os.path.dirname(os.path.abspath(__file__)))))
+
+
+def _gpu_count() -> int:
+    """Cards the workers can be spread over (0 on a CPU-only run).
+
+    Asks nvidia-smi, not JAX: the supervisor must not open a card
+    itself."""
+    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
+        return 0
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return sum(line.startswith("GPU ") for line in out.splitlines())
 
 
 def render_elastic(scene: str, out_dir: str, n_workers: int,
@@ -74,6 +93,10 @@ def render_elastic(scene: str, out_dir: str, n_workers: int,
     process exits nonzero OR disappears before its checkpoint reaches
     the target; each failure consumes one of `max_restarts`.
     """
+    gpus = _gpu_count()
+    if gpus and n_workers > gpus:
+        raise ValueError(f"{n_workers} workers but {gpus} cards: each "
+                         "worker needs a card of its own")
     os.makedirs(out_dir, exist_ok=True)
     extra_args = extra_args or []
     procs = {}

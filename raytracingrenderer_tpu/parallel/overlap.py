@@ -11,14 +11,14 @@ parameter pytree through a custom-VJP identity whose backward is a
 `psum`.  Reverse-mode turns the bounce scan into a reverse scan, so the
 psum of bounce k's parameter-grad partial executes inside the backward
 scan body, interleaved with bounce k-1's backward compute — the
-collective rides the ICI while the VPU/MXU keep working (the classic
-DP gradient-bucket overlap, per-bounce instead of per-layer).
+collective runs on the interconnect while the compute units keep
+working (the classic DP gradient-bucket overlap, per-bounce instead of
+per-layer).
 
 Correctness: sum_k psum(partial_k) == psum(sum_k partial_k), so the
 overlapped and barriered schedules produce identical gradients —
 tests/test_parallel.py pins this, and against diff.param_grads.
-Evidence for the overlap (timing table on the 8-device CPU mesh):
-scripts/bench_overlap.py -> docs/OVERLAP_r4.md.
+Whether the overlap hides the collective on four GPUs is not measured.
 
 Pixel jitter here is keyed by PIXEL ID (rng.uniform_ids) rather than
 lane shape, so the estimate is invariant to the ray sharding (the

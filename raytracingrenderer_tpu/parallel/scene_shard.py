@@ -53,16 +53,15 @@ class ShardedBVH:
     across shards so the SPMD program is shape-uniform.
     """
 
-    def __init__(self, lo, hi, right, start, count, skip,
+    def __init__(self, lo, hi, right, start, count,
                  p0: V3, e1: V3, e2: V3,
                  leaf_max: int, n_shards: int, shard_size: int,
-                 attrs=None):
+                 attrs=None, depth: int = 0):
         self.lo = lo          # (D, B, 3)
         self.hi = hi          # (D, B, 3)
         self.right = right    # (D, B)
         self.start = start    # (D, B)
         self.count = count    # (D, B)
-        self.skip = skip      # (D, B)
         self.p0 = p0          # V3 of (D, S)
         self.e1 = e1
         self.e2 = e2
@@ -75,20 +74,21 @@ class ShardedBVH:
         self.leaf_max = int(leaf_max)
         self.n_shards = int(n_shards)
         self.shard_size = int(shard_size)
+        self.depth = int(depth)      # deepest shard tree (root = 1)
 
     def tree_flatten(self):
         return ((self.lo, self.hi, self.right, self.start, self.count,
-                 self.skip, self.p0, self.e1, self.e2, self.attrs),
-                (self.leaf_max, self.n_shards, self.shard_size))
+                 self.p0, self.e1, self.e2, self.attrs),
+                (self.leaf_max, self.n_shards, self.shard_size, self.depth))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         *rest, attrs = children
         return cls(*rest, leaf_max=aux[0], n_shards=aux[1],
-                   shard_size=aux[2], attrs=attrs)
+                   shard_size=aux[2], attrs=attrs, depth=aux[3])
 
 
-def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
+def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = None
                   ) -> Tuple[ShardedBVH, np.ndarray]:
     """(T, 3, 3) vertex positions -> (ShardedBVH, global order).
 
@@ -98,7 +98,9 @@ def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
     marking padding slots (callers pad their triangle SoA to match).
     """
     from ..geometry import bvh_native
+    from ..geometry.bvh import MAX_LEAF
 
+    max_leaf = max_leaf or MAX_LEAF
     t = len(tp)
     _, order = bvh_native.build(tp, max_leaf=max_leaf, bins=64,
                                 all_axes=True)
@@ -106,11 +108,11 @@ def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
     padded = np.full(n_shards * shard, -1, np.int64)
     padded[:t] = order
 
-    los, his, rights, starts, counts, skips = [], [], [], [], [], []
+    los, his, rights, starts, counts = [], [], [], [], []
     p0 = np.zeros((n_shards, shard, 3), np.float32)
     e1 = np.zeros((n_shards, shard, 3), np.float32)
     e2 = np.zeros((n_shards, shard, 3), np.float32)
-    leaf_max = 1
+    leaf_max = depth = 1
     for i in range(n_shards):
         ids = padded[i * shard:(i + 1) * shard]
         ids = ids[ids >= 0]
@@ -130,7 +132,6 @@ def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
                       right=jnp.full(1, -1, jnp.int32),
                       start=jnp.zeros(1, jnp.int32),
                       count=jnp.zeros(1, jnp.int32),
-                      skip=jnp.ones(1, jnp.int32),
                       leaf_max=1, depth=1)
         v = tp[ids] if len(ids) else np.zeros((0, 3, 3), np.float32)
         p0[i, :len(ids)] = v[:, 0]
@@ -141,8 +142,8 @@ def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
         rights.append(np.asarray(sub.right))
         starts.append(np.asarray(sub.start))
         counts.append(np.asarray(sub.count))
-        skips.append(np.asarray(sub.skip))
         leaf_max = max(leaf_max, sub.leaf_max)
+        depth = max(depth, sub.depth)
 
     b_max = max(len(r) for r in rights)
 
@@ -158,15 +159,14 @@ def build_sharded(tp: np.ndarray, n_shards: int, max_leaf: int = 14
         return V3(jnp.asarray(a[..., 0]), jnp.asarray(a[..., 1]),
                   jnp.asarray(a[..., 2]))
 
-    # pad nodes with never-hit leaves (empty boxes, right=-1, count=0);
-    # skip pads to its own index+1 so traversal never stalls on them
+    # pad nodes with never-hit leaves (empty boxes, right=-1, count=0)
     sb = ShardedBVH(
         lo=padn(los, np.inf), hi=padn(his, -np.inf),
         right=padn(rights, -1), start=padn(starts, 0),
         count=padn(counts, 0),
-        skip=padn([np.asarray(s) for s in skips], b_max),
         p0=v3s(p0), e1=v3s(e1), e2=v3s(e2),
-        leaf_max=leaf_max, n_shards=n_shards, shard_size=shard)
+        leaf_max=leaf_max, n_shards=n_shards, shard_size=shard,
+        depth=depth)
     return sb, padded
 
 
@@ -185,9 +185,10 @@ def attach_attrs(sb: ShardedBVH, tris, materials) -> ShardedBVH:
     attrs = pack_attrs(tris, materials)          # (D*S, 44)
     attrs = attrs.reshape(sb.n_shards, sb.shard_size, attrs.shape[-1])
     return ShardedBVH(sb.lo, sb.hi, sb.right, sb.start, sb.count,
-                      sb.skip, sb.p0, sb.e1, sb.e2,
+                      sb.p0, sb.e1, sb.e2,
                       leaf_max=sb.leaf_max, n_shards=sb.n_shards,
-                      shard_size=sb.shard_size, attrs=attrs)
+                      shard_size=sb.shard_size, attrs=attrs,
+                      depth=sb.depth)
 
 
 def stub_triangles(tris) -> "Triangles":
@@ -241,8 +242,9 @@ def traverse_sharded(sb: ShardedBVH, o: V3, d: V3, t_init,
                      any_hit: bool = False,
                      mesh: Mesh = None) -> Hit:
     """Full ray batch vs the sharded scene: per-shard sub-BVH traversal
+    (the same dispatch as a replicated scene: the CUDA kernel on GPUs)
     under shard_map, then a min-t (closest) / OR (any-hit) merge."""
-    from ..geometry.intersect import _traverse_stackless
+    from ..geometry.intersect import _bvh_hit
     from ..scene.types import BVH
 
     mesh = mesh or make_mesh(sb.n_shards)
@@ -260,10 +262,9 @@ def traverse_sharded(sb: ShardedBVH, o: V3, d: V3, t_init,
             (o, d, t0))
         bvh = BVH(lo=sb_local.lo[0], hi=sb_local.hi[0],
                   right=sb_local.right[0], start=sb_local.start[0],
-                  count=sb_local.count[0], skip=sb_local.skip[0],
-                  leaf_max=sb_local.leaf_max)
-        local = _traverse_stackless(bvh, _local_tris(sb_local), o, d, t0,
-                                    any_hit, sb_local.leaf_max)
+                  count=sb_local.count[0],
+                  leaf_max=sb_local.leaf_max, depth=sb_local.depth)
+        local = _bvh_hit(bvh, _local_tris(sb_local), o, d, t0, any_hit)
         tri_g = jnp.where(local.tri >= 0, local.tri + idx * shard, -1)
         return Hit(local.t, tri_g, local.u, local.v)
 

@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.render import sample_image
+from raytracingrenderer_tpu.scene import synth
 from raytracingrenderer_tpu.scene.loader import load_scene
 from raytracingrenderer_tpu.scene.types import Camera
 
@@ -33,7 +34,8 @@ RES = 48
 
 
 def main():
-    sc = load_scene("/root/reference/RTBase/cornell-box")
+    sc = load_scene(synth.cornell(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".scenes", "cornell")))
     c = sc.camera
     sc = sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                    c.world_to_cam, RES, RES, c.origin,

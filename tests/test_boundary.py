@@ -203,7 +203,7 @@ class TestBoundaryCornell:
         scripts/measure_boundary_isolated.py."""
         import dataclasses
 
-        from conftest import ref_path
+        from conftest import scene_path
         from raytracingrenderer_tpu.geometry import intersect
         from raytracingrenderer_tpu.render import (pixel_grid,
                                                    sample_image)
@@ -212,7 +212,7 @@ class TestBoundaryCornell:
         from raytracingrenderer_tpu.scene.types import Camera
 
         RES = 48
-        sc = load_scene(ref_path("cornell-box"))
+        sc = load_scene(scene_path("cornell"))
         c = sc.camera
         sc = sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                        c.world_to_cam, RES, RES,
@@ -286,7 +286,7 @@ def test_wavefront_backward_carries_boundary_term():
     gradients when cfg.boundary_grads is on (its tape replays
     bounce_step, whose boundary injector re-traces probe rays in the
     vjp re-trace)."""
-    from conftest import ref_path
+    from conftest import scene_path
     from raytracingrenderer_tpu.diff import (_diff_cfg, _split_scene,
                                              render_loss)
     from raytracingrenderer_tpu.integrators import wavefront_diff
@@ -294,7 +294,7 @@ def test_wavefront_backward_carries_boundary_term():
     from raytracingrenderer_tpu.scene.types import Camera
 
     RES = 24
-    sc = load_scene(ref_path("cornell-box"))
+    sc = load_scene(scene_path("cornell"))
     c = sc.camera
     sc = sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                    c.world_to_cam, RES, RES, c.origin,

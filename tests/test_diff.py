@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.diff import param_grads, render_loss, train_step
 from raytracingrenderer_tpu.render import sample_image
@@ -18,7 +18,7 @@ from raytracingrenderer_tpu.scene.types import Camera
 
 @pytest.fixture(scope="module")
 def scene():
-    sc = load_scene(ref_path("cornell-box"))
+    sc = load_scene(scene_path("cornell"))
     c = sc.camera
     return sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                      c.world_to_cam, 24, 24, c.origin,
@@ -304,8 +304,11 @@ class TestRefit:
             return sc._replace(triangles=sc.triangles._replace(p0=p0))
 
         def loss_fn(dy, sc):
+            # rows below the light's screen footprint: pixel centres that
+            # see the emitter itself flip with its position, a primary-
+            # visibility boundary this estimator leaves out (diff.py)
             img = sample_image(shift(sc, dy), key, cfg)
-            return jnp.mean((img - target) ** 2)
+            return jnp.mean((img - target)[6:] ** 2)
 
         off = -0.15  # light starts 0.15 below its true position
         cur = refit(shift(scene, off))
@@ -327,9 +330,10 @@ class TestRefit:
 
 @pytest.fixture(scope="module")
 def env_scene():
-    """materialball: envmap-lit with plastic (GGX) materials — the
-    scene class that exercises the widened parameter surface."""
-    sc = load_scene(ref_path("materialball"))
+    """The sky-lit cornell variant with plastic (GGX) and conductor
+    boxes — the scene class that exercises the widened parameter
+    surface."""
+    sc = load_scene(scene_path("cornell-env"))
     c = sc.camera
     return sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                      c.world_to_cam, 16, 16, c.origin,
@@ -369,7 +373,9 @@ class TestWidenedSurface:
             return jnp.mean(sample_image(sc, key, ENV_CFG))
 
         g = jax.grad(f)(1.0)
-        eps = 3e-2
+        # small step: at 3e-2 a few common-random-number samples on the
+        # glossy boxes flip validity and the FD leaves the tangent
+        eps = 1e-2
         fd = (f(1.0 + eps) - f(1.0 - eps)) / (2 * eps)
         # reparameterized GGX: wi is smooth in alpha, FD with common
         # random numbers tracks the analytic grad up to curvature

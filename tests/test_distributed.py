@@ -1,7 +1,7 @@
 """Multi-process and cross-shard communication tests (CPU backends).
 
 SURVEY.md §4 calls for multi-process CPU-backend tests so pod-scale code
-paths run without a TPU cluster; §2.11's comms-backend row is this
+paths run without a cluster; §2.11's comms-backend row is this
 framework's distribution layer (the reference is single-process shared
 memory).  Two levels are exercised:
 
@@ -15,6 +15,7 @@ memory).  Two levels are exercised:
   match the unsharded run bit-for-bit (lighttracer.py's docstring
   contract).
 """
+import os
 import subprocess
 import sys
 import textwrap
@@ -24,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.imaging import film as film_mod
 from raytracingrenderer_tpu.integrators.lighttracer import light_trace_pass
@@ -82,13 +83,13 @@ _WORKER = textwrap.dedent("""
 @pytest.mark.slow
 class TestMultiProcess:
     def test_two_process_film_reduction(self, tmp_path):
-        scene = ref_path("cornell-box")
+        scene = scene_path("cornell")
         code = _WORKER % {"scene": scene}
         port = "29741"
         procs = [subprocess.Popen(
             [sys.executable, "-c", code, str(i), port],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            cwd="/root/repo") for i in range(2)]
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))) for i in range(2)]
         outs = []
         for p in procs:
             out, _ = p.communicate(timeout=420)
@@ -126,7 +127,7 @@ class TestElasticRecovery:
         from raytracingrenderer_tpu.parallel.elastic import (
             _ckpt_spp, render_elastic)
         from raytracingrenderer_tpu.render import render
-        scene_dir = ref_path("cornell-box")
+        scene_dir = scene_path("cornell")
         out = str(tmp_path)
         spp = 4
         extra = ["-width", "16", "-height", "16", "-maxDepth", "2"]
@@ -171,7 +172,7 @@ class TestElasticRecovery:
 
 class TestShardedLightTracer:
     def test_sharded_matches_unsharded(self):
-        sc = load_scene(ref_path("cornell-box"))
+        sc = load_scene(scene_path("cornell"))
         c = sc.camera
         sc = sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                        c.world_to_cam, 32, 32, c.origin,

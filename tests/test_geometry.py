@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.core.vec import V3
 from raytracingrenderer_tpu.geometry import intersect
 from raytracingrenderer_tpu.geometry.bvh import build, validate
@@ -56,12 +56,12 @@ def _soup_rays(tp, n, seed):
 
 @pytest.fixture(scope="module")
 def cornell():
-    return load_scene(ref_path("cornell-box"))
+    return load_scene(scene_path("cornell"))
 
 
 @pytest.fixture(scope="module")
-def materials_scene():
-    return load_scene(ref_path("MaterialsScene"))
+def interior():
+    return load_scene(scene_path("interior"))
 
 
 class TestBVH:
@@ -85,8 +85,8 @@ class TestBVH:
         agree = (np.asarray(hb.tri) == np.asarray(hv.tri)).mean()
         assert agree > 0.99
 
-    def test_traversal_matches_brute_materials(self, materials_scene):
-        sc = materials_scene
+    def test_traversal_matches_brute_interior(self, interior):
+        sc = interior
         o, d = rays_toward(sc, 800, 1)
         hb = intersect.closest_hit_brute(sc.triangles, o, d)
         hv = intersect.closest_hit_bvh(sc.bvh, sc.triangles, o, d)
@@ -176,34 +176,14 @@ class TestNativeBuilder:
         np.testing.assert_allclose(np.asarray(hn.t), np.asarray(hb.t),
                                    rtol=1e-5, atol=1e-5)
 
-    def test_presplit_refs_exact(self):
-        """presplit() references (early split clipping): the build over
-        clipped AABBs with duplicated full-triangle leaves returns the
-        same closest hits as brute force (probe apparatus, default
-        off — docs/BUILD_QUALITY_r5.md)."""
-        from raytracingrenderer_tpu.geometry.bvh import build, presplit
-        rng = np.random.default_rng(13)
-        tp = rng.standard_normal((600, 3, 3)).astype(np.float32)
-        tp[:6] *= 20.0
-        refs = presplit(tp, area_factor=0.25, max_ratio=1.6)
-        assert len(refs[2]) > len(tp)  # actually split something
-        assert set(refs[2].tolist()) == set(range(len(tp)))  # all covered
-        bvh, order = build(tp, max_leaf=14, refs=refs)
-        tris = _tris_of(tp[order])
-        o, d = _soup_rays(tp, 512, 5)
-        hb = intersect.closest_hit_brute(_tris_of(tp), o, d)
-        hv = intersect.closest_hit_bvh(bvh, tris, o, d)
-        np.testing.assert_allclose(np.asarray(hb.t), np.asarray(hv.t),
-                                   rtol=1e-4, atol=1e-4)
-
     def test_native_traversal_matches_brute(self):
         from raytracingrenderer_tpu.geometry import bvh_native
         from raytracingrenderer_tpu.scene.types import Triangles
         from raytracingrenderer_tpu.scene.loader import load_scene
-        from conftest import ref_path
+        from conftest import scene_path
         if not bvh_native.available():
             pytest.skip("native builder not built")
-        sc = load_scene(ref_path("cornell-box"))  # loader now uses native
+        sc = load_scene(scene_path("cornell"))  # loader now uses native
         o, d = rays_toward(sc, 1000, 7)
         hb = intersect.closest_hit_brute(sc.triangles, o, d)
         hv = intersect.closest_hit_bvh(sc.bvh, sc.triangles, o, d)

@@ -1,7 +1,7 @@
 import numpy as np
 import jax
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.interactive import InteractiveSession, run_scripted
 from raytracingrenderer_tpu.scene.loader import load_scene
@@ -13,7 +13,7 @@ class TestInteractive:
     film and the render re-converges from the new camera; P/L save."""
 
     def _scene(self):
-        sc = load_scene(ref_path("cornell-box"))
+        sc = load_scene(scene_path("cornell"))
         c = sc.camera
         return sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                          c.world_to_cam, 32, 32, c.origin,
@@ -21,7 +21,7 @@ class TestInteractive:
 
     def test_move_clears_and_reconverges(self):
         cfg = RenderConfig(max_depth=2, mis=True, jitter=True)
-        s = InteractiveSession(self._scene(), ref_path("cornell-box"), cfg)
+        s = InteractiveSession(self._scene(), scene_path("cornell"), cfg)
         s.step(2)
         assert s.spp == 2
         img_before = np.asarray(s.film.buffer).copy()
@@ -37,7 +37,7 @@ class TestInteractive:
 
     def test_yaw_changes_view(self):
         cfg = RenderConfig(max_depth=2, mis=True, jitter=False)
-        s = InteractiveSession(self._scene(), ref_path("cornell-box"), cfg)
+        s = InteractiveSession(self._scene(), scene_path("cornell"), cfg)
         s.step(1)
         a = np.asarray(s.film.buffer).copy()
         s.key("left")
@@ -48,7 +48,7 @@ class TestInteractive:
     def test_scripted_session_saves(self, tmp_path):
         cfg = RenderConfig(max_depth=2, mis=True, jitter=True)
         out = str(tmp_path / "shot")
-        s = run_scripted(self._scene(), ref_path("cornell-box"), cfg,
+        s = run_scripted(self._scene(), scene_path("cornell"), cfg,
                          keys="w,p,l,esc", output=out)
         assert not s.running               # esc quit
         assert (tmp_path / "shot.hdr").exists()

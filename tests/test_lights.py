@@ -4,9 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import sky_image
 from raytracingrenderer_tpu.core.vec import V3
-from raytracingrenderer_tpu.io.hdr import read_hdr
 from raytracingrenderer_tpu.lights import envmap as em
 
 N = 100_000
@@ -14,10 +13,7 @@ N = 100_000
 
 @pytest.fixture(scope="module")
 def env():
-    img = read_hdr(ref_path("1.hdr"))
-    # downsample for test speed
-    img = img.reshape(128, 8, 128, 8, 3).mean(axis=(1, 3))
-    return em.build_envmap(img)
+    return em.build_envmap(sky_image(128, 128))
 
 
 def uv(seed, n=N):
@@ -97,10 +93,10 @@ class TestPowerWeightedSelection:
         import json
         import shutil
 
-        from conftest import ref_path
+        from conftest import scene_path
         from raytracingrenderer_tpu.scene.loader import load_scene
         dst = tmp_path_factory.mktemp("cb") / "cornell2"
-        shutil.copytree(ref_path("cornell-box"), dst)
+        shutil.copytree(scene_path("cornell"), dst)
         with open(dst / "scene.json") as f:
             desc = json.load(f)
         cubes = [i for i, inst in enumerate(desc["instances"])

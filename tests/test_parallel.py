@@ -5,13 +5,15 @@ regardless of device count, because randomness is drawn as one global
 array keyed by (seed, spp) — the fix for the reference's duplicated
 per-thread seeds (Renderer.h:55).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.parallel.mesh import RAY_AXIS, make_mesh
 from raytracingrenderer_tpu.render import sample_image
@@ -21,7 +23,7 @@ from raytracingrenderer_tpu.scene.types import Camera
 
 @pytest.fixture(scope="module")
 def scene():
-    sc = load_scene(ref_path("cornell-box"))
+    sc = load_scene(scene_path("cornell"))
     c = sc.camera
     return sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                      c.world_to_cam, 32, 32, c.origin,
@@ -62,13 +64,15 @@ class TestSharding:
 class TestDryrun:
     def test_dryrun_multichip(self):
         import sys
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
         import __graft_entry__ as ge
         ge.dryrun_multichip(8)
 
     def test_entry_compiles(self):
         import sys
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
         import __graft_entry__ as ge
         fn, args = ge.entry()
         out = jax.jit(fn)(*args)
@@ -184,8 +188,8 @@ class TestSceneShardingBVH:
             BIG_T, closest_hit_brute)
         from raytracingrenderer_tpu.parallel.scene_shard import (
             place_sharded, traverse_sharded)
-        sc_rep = load_scene(ref_path("materialball"))
-        sc = load_scene(ref_path("materialball"), scene_shards=8)
+        sc_rep = load_scene(scene_path("interior"))
+        sc = load_scene(scene_path("interior"), scene_shards=8)
         mesh = make_mesh(8)
         sb = place_sharded(sc.bvh, mesh)
         rng = np.random.default_rng(0)
@@ -246,8 +250,8 @@ class TestSceneShardingBVH:
                                    rtol=1e-5, atol=1e-5)
 
     @pytest.mark.slow
-    def test_sharded_render_matches_replicated_bathroom(self):
-        """SURVEY §2.11 done-criterion: bathroom renders with scene
+    def test_sharded_render_matches_replicated_interior(self):
+        """SURVEY §2.11 done-criterion: the interior renders with scene
         sharding on the 8-device mesh matching the replicated image."""
         from raytracingrenderer_tpu.parallel.scene_shard import (
             place_sharded)
@@ -261,9 +265,9 @@ class TestSceneShardingBVH:
                 c.origin, c.a_film))
 
         key = jax.random.PRNGKey(0)
-        rep = tiny(load_scene(ref_path("bathroom")))
+        rep = tiny(load_scene(scene_path("interior")))
         img_rep = np.asarray(sample_image(rep, key, cfg))
-        sh = tiny(load_scene(ref_path("bathroom"), scene_shards=8))
+        sh = tiny(load_scene(scene_path("interior"), scene_shards=8))
         sh = sh._replace(bvh=place_sharded(sh.bvh, make_mesh(8)))
         img_sh = np.asarray(sample_image(sh, key, cfg))
         np.testing.assert_allclose(img_rep, img_sh, rtol=1e-3, atol=1e-3)

@@ -8,7 +8,7 @@ import jax
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.config import RenderConfig
 from raytracingrenderer_tpu.imaging import film as film_mod
 from raytracingrenderer_tpu.integrators.dispatch import render_with
@@ -21,7 +21,7 @@ RES = 32
 
 @pytest.fixture(scope="module")
 def scene():
-    sc = load_scene(ref_path("cornell-box"))
+    sc = load_scene(scene_path("cornell"))
     c = sc.camera
     return sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                      c.world_to_cam, RES, RES, c.origin,
@@ -236,11 +236,11 @@ class TestIntegrators:
 
 @pytest.mark.slow
 class TestEnvmapSceneConsistency:
-    """materialball (env-lit): NEE-only and MIS estimators must agree —
+    """Sky-lit cornell: NEE-only and MIS estimators must agree —
     exercises env CDF importance sampling + MIS weights end-to-end."""
 
     def test_nee_vs_mis_mean(self):
-        sc = load_scene(ref_path("materialball"))
+        sc = load_scene(scene_path("cornell-env"))
         c = sc.camera
         sc = sc._replace(camera=Camera(c.p, c.p_inv, c.cam_to_world,
                                        c.world_to_cam, 48, 27, c.origin,

@@ -1,21 +1,19 @@
-"""Scene loader tests: per-scene counts vs SURVEY.md §2.8, camera parity."""
+"""Scene loader tests on generated scenes: counts, materials, camera parity."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import ref_path
+from conftest import scene_path
 from raytracingrenderer_tpu.core.vec import V3
 from raytracingrenderer_tpu.scene import camera as cam_mod
 from raytracingrenderer_tpu.scene.loader import load_scene
-from raytracingrenderer_tpu.scene.types import (BG_ENVMAP, MAT_CONDUCTOR,
-                                                MAT_DIFFUSE, MAT_GLASS,
-                                                MAT_MIRROR, MAT_OREN_NAYAR,
-                                                MAT_PLASTIC)
+from raytracingrenderer_tpu.scene.types import (MAT_CONDUCTOR, MAT_DIFFUSE,
+                                                MAT_GLASS, MAT_PLASTIC)
 
 
 @pytest.fixture(scope="module")
 def cornell():
-    return load_scene(ref_path("cornell-box"))
+    return load_scene(scene_path("cornell"))
 
 
 class TestCornell:
@@ -69,32 +67,39 @@ class TestCornell:
         assert not bool(ok[0])
 
 
-class TestOtherScenes:
-    def test_materials_scene(self):
-        sc = load_scene(ref_path("MaterialsScene"), build_bvh=False)
-        assert 5000 < sc.triangles.count < 7000    # SURVEY: ~5.8k
+class TestInterior:
+    def test_small_variant(self):
+        sc = load_scene(scene_path("interior"))
+        assert 2000 < sc.triangles.count < 5000
         mt = set(np.asarray(sc.materials.mtype).tolist())
-        assert {MAT_CONDUCTOR, MAT_OREN_NAYAR, MAT_GLASS, MAT_MIRROR,
-                MAT_PLASTIC, MAT_DIFFUSE} <= mt
-        assert sc.background.kind == BG_ENVMAP  # missing envmap file ->
-        # white fallback envmap still registers as a light
-        assert sc.num_lights == 0
+        assert {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_PLASTIC} <= mt
+        assert 2 <= sc.num_lights // 2 <= 4          # 2-tri rectangles
+        assert sc.bvh is not None and sc.bvh.depth >= 2
 
-    def test_materialball(self):
-        sc = load_scene(ref_path("materialball"), build_bvh=False)
-        assert 15000 < sc.triangles.count < 20000  # SURVEY: ~17.5k
-        assert sc.background.kind == BG_ENVMAP
-        assert sc.background.envmap.data.shape[-1] == 3
+    def test_full_scale(self, tmp_path):
+        """The chip's scene: >= 300k triangles after flattening, ~850
+        instances, every material class but Oren-Nayar/mirror."""
+        from raytracingrenderer_tpu.scene import synth
+        sc = load_scene(synth.interior(str(tmp_path / "interior")),
+                        build_bvh=False)
+        assert 300_000 <= sc.triangles.count < 360_000
+        assert sc.materials.count > 800
+        mt = set(np.asarray(sc.materials.mtype).tolist())
+        assert {MAT_DIFFUSE, MAT_CONDUCTOR, MAT_GLASS, MAT_PLASTIC} <= mt
+        assert sc.num_lights == 6
+        assert (sc.camera.width, sc.camera.height) == (1920, 1080)
 
-    def test_coffee(self):
-        sc = load_scene(ref_path("coffee"), build_bvh=False)
-        assert 90000 < sc.triangles.count < 110000  # SURVEY: ~99k
-        assert sc.num_lights > 0                    # 3 emissive materials
-        assert sc.camera.width == 800 and sc.camera.height == 1000
-
-    @pytest.mark.slow
-    def test_bathroom(self):
-        sc = load_scene(ref_path("bathroom"), build_bvh=False)
-        assert 300000 < sc.triangles.count < 360000  # SURVEY: ~331k
-        assert sc.materials.count > 800              # 856 instances
-        assert sc.textures.data.shape[0] >= 1        # real texture atlas
+    def test_same_seed_same_files(self, tmp_path):
+        import filecmp
+        import os
+        from raytracingrenderer_tpu.scene import synth
+        a = synth.interior(str(tmp_path / "a"), triangles=3000, seed=4)
+        b = synth.interior(str(tmp_path / "b"), triangles=3000, seed=4)
+        c = synth.interior(str(tmp_path / "c"), triangles=3000, seed=5)
+        names = sorted(os.listdir(a))
+        assert names == sorted(os.listdir(b))
+        _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+        assert not mismatch and not errors
+        with open(os.path.join(a, "scene.json")) as fa, \
+                open(os.path.join(c, "scene.json")) as fc:
+            assert fa.read() != fc.read()
